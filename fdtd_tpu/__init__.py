@@ -1,12 +1,13 @@
-"""fdtd_tpu — a TPU-native Yee-FDTD electromagnetic simulation framework.
+"""fdtd_tpu — a JAX Yee-FDTD electromagnetic simulation framework.
 
-A ground-up JAX/XLA/Pallas rebuild of the capabilities of the reference
+A ground-up JAX/XLA rebuild of the capabilities of the reference
 microwave-oven FDTD solver (Ethalides33/FDTD-Maxwell-microwave-oven):
 leapfrog curl updates as fused device kernels, PEC cavity walls by
 construction, TE10 waveguide-port source, TE101 analytical validation
 oracle, energy/SAR diagnostics, VTK/NPZ snapshot streaming, and spatial
 domain decomposition over a ``jax.sharding.Mesh`` with one-cell halo
-exchange — the TPU analogue of the reference's MPI slab decomposition.
+exchange — the device-mesh analogue of the reference's MPI slab
+decomposition.
 """
 
 from .params import Mode, Params, SourceConfig, load_parameters, parse_params_text, time_values, num_steps

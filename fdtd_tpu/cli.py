@@ -17,20 +17,30 @@ from .runner import run_simulation
 from .state import ferrite_slab
 
 
+def _backend_arg(name: str) -> str:
+    """argparse type for --backend: the removed tier names fail here, at
+    parsing, with the reason."""
+    from .step import check_backend
+
+    try:
+        check_backend(name)
+    except ValueError as e:
+        raise argparse.ArgumentTypeError(str(e)) from None
+    return name
+
+
 def build_arg_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="fdtd_tpu",
-        description="TPU-native FDTD microwave-oven simulator (params.txt compatible)",
+        description="JAX FDTD microwave-oven simulator (params.txt compatible)",
     )
     ap.add_argument("params", help="parameters file (.txt), 8 ordered scalars")
     ap.add_argument("--out", default="r", help="output directory (default: r, like the reference)")
     ap.add_argument("--dtype", default="float32", choices=["float32", "float64", "bfloat16"])
     ap.add_argument(
-        "--backend", default="auto",
-        choices=["auto", "xla", "pallas", "pallas_fused", "pallas_temporal",
-                 "pallas_stream"],
-        help="update-kernel path (default auto: fastest supported for the "
-             "platform/config; explicit choices are honored or noticed)")
+        "--backend", default="auto", type=_backend_arg, metavar="{auto,xla}",
+        help="update path: every run takes the jnp step, so auto and xla "
+             "are the same (kept for existing scripts)")
     ap.add_argument("--no-output", action="store_true", help="skip snapshots (benchmark mode)")
     ap.add_argument("--water-block", action="store_true", help="place a water load in the cavity")
     ap.add_argument("--ferrite-slab", action="store_true",
@@ -43,10 +53,6 @@ def build_arg_parser() -> argparse.ArgumentParser:
                     help="disable reference-quirk compatibility in exported validation vars")
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="write a jax.profiler trace of the run to DIR")
-    ap.add_argument("--temporal-steps", type=int, default=None, metavar="S",
-                    choices=range(2, 9),
-                    help="steps per sweep for --backend pallas_temporal (2-8; "
-                         "default: measured per-dtype sweet spot)")
     ap.add_argument("--source-frequency", type=float, default=None, metavar="HZ",
                     help="magnetron drive frequency (reference hardcodes 2.45e10, main.c:735)")
     ap.add_argument("--source-aprime", type=float, default=None, metavar="M",
@@ -60,7 +66,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--pml", type=int, default=0, metavar="N",
                     help="CPML absorbing boundaries, N cells per face "
                          "(0 = closed PEC cavity like the reference; "
-                         "open-boundary extension, xla path)")
+                         "open-boundary extension)")
     ap.add_argument("--source-envelope", default=None,
                     choices=["cw", "gaussian"],
                     help="drive envelope: cw (reference behavior) or a "
@@ -90,7 +96,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--dispersive", action="store_true",
                     help="make the --water-block load a true single-pole "
                          "Debye medium solved by the ADE method (frequency-"
-                         "dependent eps(w) in the time domain); xla backend")
+                         "dependent eps(w) in the time domain)")
     ap.add_argument("--dft-fields", default="e", choices=["e", "eh"],
                     help="DFT components: 'e' (default) or 'eh' (all six, "
                          "enabling the cycle-averaged Poynting map)")
@@ -315,10 +321,6 @@ def main(argv=None) -> int:
     print("Welcome into our microwave oven eletrico-magnetic field simulator! \n", end="")
     args = build_arg_parser().parse_args(argv)
 
-    if args.temporal_steps:
-        import os as _os
-
-        _os.environ["FDTD_TEMPORAL_STEPS"] = str(args.temporal_steps)
     print("Loading the parameters...")
     try:
         import dataclasses
@@ -487,9 +489,8 @@ def main(argv=None) -> int:
             probes=probe_set,
         )
     except NotImplementedError as e:
-        # unsupported backend/feature combination that has no fallback
-        print(f"error: backend {args.backend!r} does not support this "
-              f"configuration: {e}", file=sys.stderr)
+        # a feature combination the solver does not support
+        print(f"error: unsupported configuration: {e}", file=sys.stderr)
         return 1
     except ValueError as e:
         # e.g. bad --shard spec, too few devices, --sar with --shard

@@ -20,9 +20,9 @@ per step.  Normalization: for a real signal A cos(2 pi f t + phi)
 sampled over whole periods, |E_hat| -> A (the 2/N factor), so phasor
 magnitudes read directly in field units.
 
-Supported on the single-chip scan backends ("xla", "pallas",
-"pallas_fused" — the group-stepped temporal/streaming kernels never
-materialize per-step states, and the runner falls back with a notice).
+Every path that carries per-step states accumulates it: the closed
+cavity, CPML, dispersive and sharded scans all call
+:func:`fdtd_tpu.monitors.apply_monitors`.
 """
 
 from __future__ import annotations
@@ -153,34 +153,3 @@ def finalize(dft: DftConfig, acc, steps: int,
         fields=dft.fields,
     )
 
-
-def supported_backend(backend: str) -> bool:
-    """Per-step states exist only on the single-step scan backends."""
-    return backend in ("xla", "pallas", "pallas_fused")
-
-
-def make_dft_chunk_runner(
-    p: Params, materials, backend: str, dft: DftConfig,
-    accumulate_power: bool = False,
-):
-    """``run(state, (ts, amps, cw, sw), power_acc, dft_acc) ->
-    (state, power_acc, dft_acc)`` — the generic scan chunk runner with
-    the DFT running sums (and optionally the SAR accumulator) in the
-    carry.  ``cw``/``sw`` come from :func:`dft_weights` sliced to the
-    chunk.  Not donating: DFT runs are diagnostics, and value semantics
-    keep the runner's restore-at-boundary pattern race-free.
-
-    Thin wrapper over the unified monitored scan
-    (:func:`fdtd_tpu.monitors.make_monitored_chunk_runner`) with only
-    the DFT monitor enabled."""
-    from .monitors import make_monitored_chunk_runner
-
-    run_m = make_monitored_chunk_runner(
-        p, materials, backend, dft=dft, accumulate_power=accumulate_power
-    )
-
-    def run(s, xs, power_acc, dft_acc):
-        s, acc, dacc, _ = run_m(s, xs, power_acc, dft_acc)
-        return s, acc, dacc
-
-    return run

@@ -173,38 +173,3 @@ def power_deposition(p: Params, s: FieldState, sigma_cells):
     """
     return sigma_cells * e_center_sq(p, s)
 
-
-def e_cell_means_stripped(p: Params, st):
-    """Cell-centered (mean_ex, mean_ey, mean_ez) reading the fast-path
-    StrippedState directly — bit-identical to
-    ``_e_cell_means(p, to_full(p, st))`` (same values, same arithmetic
-    order) without materializing the canonical layout."""
-    from .ops.pallas_fused import D
-
-    K, J, I = p.maxk, p.maxj, p.maxi
-    at = _acc_dtype(st.ex)
-    ex = st.ex[D : D + K + 1, : J + 1, :I].astype(at)
-    ey = jnp.concatenate(
-        [st.ey[D : D + K + 1, :J, :], st.ey_s[D : D + K + 1, :J]], axis=2
-    ).astype(at)
-    ez = jnp.concatenate(
-        [st.ez[D : D + K, : J + 1, :], st.ez_s[D : D + K, : J + 1]], axis=2
-    ).astype(at)
-
-    mean_ex = 0.25 * (ex[:K, :J, :I] + ex[1 : K + 1, :J, :I] + ex[:K, 1 : J + 1, :I] + ex[1 : K + 1, 1 : J + 1, :I])
-    mean_ey = 0.25 * (ey[:K, :J, :I] + ey[:K, :J, 1 : I + 1] + ey[1 : K + 1, :J, :I] + ey[1 : K + 1, :J, 1 : I + 1])
-    mean_ez = 0.25 * (ez[:K, :J, :I] + ez[:K, 1 : J + 1, :I] + ez[:K, :J, 1 : I + 1] + ez[:K, 1 : J + 1, 1 : I + 1])
-    return mean_ex, mean_ey, mean_ez
-
-
-def power_deposition_stripped(p: Params, st, sigma_cells):
-    """``power_deposition`` reading the fast-path StrippedState directly.
-
-    Bit-identical to ``power_deposition(p, to_full(p, st), sigma)`` — same
-    values, same arithmetic order — but reads only the three E bulks (+ the
-    two tiny boundary strips) instead of materializing all six fields in the
-    canonical layout each step (the per-step layout restore the round-1
-    review flagged).
-    """
-    mean_ex, mean_ey, mean_ez = e_cell_means_stripped(p, st)
-    return sigma_cells * (mean_ex**2 + mean_ey**2 + mean_ez**2)

@@ -3,7 +3,7 @@
 The reference keeps six differently-shaped 1-D arrays with hand-inlined index
 maps (reference: main.c:294-364, 374-407).  Here every component lives in a
 single uniform (maxk+1, maxj+1, maxi+1) array — axis order (k, j, i), with i
-on the TPU 128-lane minor axis — and the stagger is expressed as each
+on the contiguous minor axis — and the stagger is expressed as each
 component's *physical extent* inside that box.  Entries outside the physical
 extent are padding: initialized to zero and never read or written by the
 update rules, so parity with the C arrays is exact.

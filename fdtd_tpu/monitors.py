@@ -11,9 +11,7 @@ sweep, and the series feeds resonance/spectrum analysis
 ``make_monitored_chunk_runner`` is the single scan that composes every
 per-step diagnostic: SAR accumulation, DFT phasor sums
 (:mod:`fdtd_tpu.dft`), and probe capture — one pass over the state per
-step regardless of how many monitors are on.  Supported on the
-single-step scan backends (xla/pallas/pallas_fused); the group-stepped
-temporal/streaming kernels never materialize per-step states.
+step regardless of how many monitors are on.
 """
 
 from __future__ import annotations
@@ -109,7 +107,6 @@ def apply_monitors(p: Params, full, weights, dft, cells, dacc):
 def make_monitored_chunk_runner(
     p: Params,
     materials,
-    backend: str,
     dft=None,
     probes: ProbeSet | None = None,
     accumulate_power: bool = False,
@@ -121,20 +118,13 @@ def make_monitored_chunk_runner(
     (n_steps, n_probes, 6) or None.  Not donating: monitor runs are
     diagnostics and keep value semantics."""
     from . import diagnostics
-    from .dft import supported_backend
     from .state import update_coefs
-    from .step import backend_adapters, make_step
+    from .step import make_step
 
-    if not supported_backend(backend):
-        raise NotImplementedError(
-            f"per-step monitors need per-step states; backend {backend!r} "
-            "group-steps (use xla/pallas/pallas_fused)"
-        )
     if probes is not None:
         probes.validate(p)
     coefs = update_coefs(p, materials)
-    step = make_step(p, materials, backend, coefs=coefs)
-    _, restore = backend_adapters(p, backend)
+    step = make_step(p, materials, coefs=coefs)
     sigma = (
         np.asarray(coefs.sigma_cells)
         if coefs.sigma_cells is not None
@@ -149,10 +139,9 @@ def make_monitored_chunk_runner(
             s, acc, dacc = carry
             sx, weights = split_monitor_inputs(x, dft)
             s = step(s, sx)
-            full = restore(s)
-            dacc, ys = apply_monitors(p, full, weights, dft, cells, dacc)
+            dacc, ys = apply_monitors(p, s, weights, dft, cells, dacc)
             if accumulate_power:
-                inc = diagnostics.power_deposition(p, full, sigma)
+                inc = diagnostics.power_deposition(p, s, sigma)
                 acc = acc + (inc * dt_step).astype(acc.dtype)
             return (s, acc, dacc), ys
 

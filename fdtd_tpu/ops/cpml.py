@@ -26,8 +26,8 @@ a pure additive correction.  b = 1, c = 0 outside the slabs, so psi is
 identically zero there and XLA's fused elementwise pass is the only
 cost.
 
-This is the ground-truth (xla-backend) implementation; the Pallas kernel
-families keep the reference's closed-cavity production scope.  psi
+This is the single-device implementation (the sharded one is
+:mod:`fdtd_tpu.parallel.sharded_step`, with the same arithmetic).  psi
 arrays are SLAB-RESTRICTED (r3): each stores only the 2*cells rows of
 its PML axis, so PML memory and per-step traffic scale with the PML
 volume (~12*cells/N of the field state) instead of the 2x of a
@@ -127,11 +127,9 @@ def _profile(pos: np.ndarray, extent: int, p: Params, cfg: PMLConfig):
 
 # The 12 correction terms: (name, target, sign, pml_axis, src, e_pass).
 # H terms difference src at +1 along the pml axis; E terms at -1.  Per
-# target the j/i-axis terms precede the k-axis term — every path (xla,
-# sharded psi12, the Pallas compositions) applies its adds in _TERMS
-# order so corner cells round identically, and the in-kernel tier
-# (ops/cpml_kernel.py) applies j/i corrections inside the two-pass
-# kernels with the k corrections after, which only matches this order.
+# target the j/i-axis terms precede the k-axis term — every path
+# (single-device, sharded psi12, the dispersive ADE+CPML step) applies its
+# adds in _TERMS order so corner cells round identically.
 # (Where a target has two non-k terms, the +axis term keeps its
 # original precedence over the -axis term.)
 # Compat note (r5 reorder): moving the j/i adds ahead of the k add
@@ -216,7 +214,7 @@ def _shifted(sl, axis, d):
 
 
 def build_plan(p: Params, cfg: PMLConfig, dt) -> dict:
-    """Per-term correction plan shared by the xla and Pallas-fast paths.
+    """Per-term correction plan shared by the CPML steps.
 
     ``{name: (lo_sl, hi_sl, sign, axis, src, target, b, c)}`` where
     lo_sl/hi_sl are the target's slab sub-regions in CANONICAL array

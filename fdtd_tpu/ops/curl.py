@@ -8,8 +8,8 @@ max, which leaves tangential E on all six faces untouched — the implicit PEC
 boundary (description.pdf section 2.1); the slice bounds below reproduce that
 exactly, no masks needed.
 
-XLA fuses each component update into a single HBM-bandwidth-bound pass; the
-Pallas kernel in :mod:`fdtd_tpu.ops.pallas_step` fuses further.
+XLA fuses the component updates into memory-bandwidth-bound passes over
+device memory.
 """
 
 from __future__ import annotations

@@ -35,10 +35,8 @@ edge-averaged from cell maps with the same 4-cell stencil as
 eps/sigma; outside the physical extents (ca, cb, cp, k1, k2) =
 (1, 0, 0, 1, 0) so pads and PEC faces stay inert.
 
-This module is the xla/ground-truth tier (pure-jnp slice ops) and the
-coefficient factory; the Pallas kernel tiers (r4: streaming ADE sweep +
-two-pass ADE kernels) live in :mod:`fdtd_tpu.ops.pallas_dispersive`,
-and the sharded shard_map tier in
+This module is the single-device ADE step (pure-jnp slice ops) and the
+coefficient factory; the sharded shard_map step is in
 :mod:`fdtd_tpu.parallel.sharded_step.make_sharded_dispersive_step`.
 Dielectric (Debye) loss is E.dP/dt work,
 NOT sigma|E|^2 — so the --sar accumulator on dispersive runs uses the

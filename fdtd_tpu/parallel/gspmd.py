@@ -2,7 +2,7 @@
 
 The scaling-book recipe verbatim: pick a mesh, annotate shardings on the
 inputs, and let XLA partition the computation — the shifted-slice reads in
-the curl updates become collective-permute halo exchanges over ICI
+the curl updates become collective-permute halo exchanges
 automatically.  Zero extra numerics code; bit-identical to the explicit
 shard_map path.  Use this for quick scaling; use
 :mod:`fdtd_tpu.parallel.sharded_step` when hand-tuned comm scheduling wins.

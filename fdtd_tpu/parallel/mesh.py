@@ -3,7 +3,8 @@
 The reference parallelizes with a 1-D MPI Z-slab decomposition and ghost
 planes (description.pdf section 2.2).  Here the spatial grid shards over a
 1-D, 2-D or 3-D ``jax.sharding.Mesh`` with axes ('z', 'y', 'x') mapped onto
-the (k, j, i) array axes; halo traffic rides ICI as XLA collective-permutes.
+the (k, j, i) array axes; halo traffic rides XLA collective-permutes (NCCL
+on GPUs).
 """
 
 from __future__ import annotations
@@ -44,25 +45,22 @@ def make_mesh(
     shape: tuple[int, int, int] | None = None,
     devices=None,
 ) -> Mesh:
+    """A ('z', 'y', 'x') mesh over ``n_devices`` of ``devices`` (default:
+    the default backend's devices).  Too few devices is an error: a mesh
+    never moves to another platform's devices.  For a virtual CPU mesh, set
+    XLA_FLAGS=--xla_force_host_platform_device_count=N and
+    JAX_PLATFORMS=cpu before the first JAX call (see tests/conftest.py)."""
     if devices is None:
         devices = jax.devices()
-        if len(devices) < (n_devices or 1):
-            # Virtual host devices exist only if
-            # --xla_force_host_platform_device_count was in XLA_FLAGS before
-            # JAX initialized (tests/conftest.py does this; for standalone
-            # dry runs __graft_entry__.dryrun_multichip arranges it by
-            # spawning a fresh subprocess).
-            devices = jax.devices("cpu")
     if n_devices is None:
         n_devices = len(devices)
     if shape is None:
         shape = factor3(n_devices)
     assert math.prod(shape) == n_devices
     if len(devices) < n_devices:
-        raise RuntimeError(
-            f"need {n_devices} devices, found {len(devices)}; for a virtual "
-            "mesh, set XLA_FLAGS=--xla_force_host_platform_device_count="
-            f"{n_devices} before the first JAX call (see tests/conftest.py)"
+        raise ValueError(
+            f"a {n_devices}-device mesh needs {n_devices} "
+            f"{devices[0].platform} devices; {len(devices)} available"
         )
     dev_array = np.asarray(devices[:n_devices]).reshape(shape)
     return Mesh(dev_array, AXES)

@@ -100,8 +100,8 @@ class Params:
 
         All six Yee components live in arrays of this one shape; each
         component's *physical* region is a sub-box of it (see
-        :mod:`fdtd_tpu.grid`).  Uniform shapes are the TPU-idiomatic choice:
-        one block spec, one sharding, one fused kernel.
+        :mod:`fdtd_tpu.grid`).  Uniform shapes keep one sharding and let
+        XLA fuse the component updates.
         """
         return (self.maxk + 1, self.maxj + 1, self.maxi + 1)
 

@@ -1,7 +1,7 @@
 """Field state pytree, initial conditions, and material model.
 
 Replaces the reference ``Fields`` struct of six malloc'd fp64 arrays
-(reference: main.c:93-103, 294-364) with a JAX pytree of six HBM-resident
+(reference: main.c:93-103, 294-364) with a JAX pytree of six device-resident
 arrays of one uniform padded shape (see :mod:`fdtd_tpu.grid`).
 
 Also adds the heterogeneous-material capability the reference lacks (it is

@@ -54,9 +54,10 @@ def batch_mesh(n_devices: int | None = None, devices=None):
 
     if devices is None:
         devices = jax.devices()
-        if n_devices is not None and len(devices) < n_devices:
-            devices = jax.devices("cpu")
     if n_devices is not None:
+        if len(devices) < n_devices:
+            raise ValueError(f"batch_mesh({n_devices}) needs {n_devices} "
+                             f"devices; {len(devices)} available")
         devices = devices[:n_devices]
     return Mesh(np.asarray(devices), ("b",))
 
@@ -74,8 +75,6 @@ def spatial_batch_mesh(nb: int, nz: int, devices=None):
 
     if devices is None:
         devices = jax.devices()
-        if len(devices) < nb * nz:
-            devices = jax.devices("cpu")
     if len(devices) < nb * nz:
         raise ValueError(f"spatial_batch_mesh({nb}, {nz}) needs {nb * nz} devices")
     return Mesh(np.asarray(devices[: nb * nz]).reshape(nb, nz), ("b", "z"))
@@ -216,7 +215,6 @@ def frequency_sweep(
     p: Params,
     frequencies: Sequence[float],
     n_steps: int | None = None,
-    backend: str = "xla",
     mesh=None,
     pml=None,
 ) -> SweepResult:
@@ -231,10 +229,6 @@ def frequency_sweep(
         raise ValueError("frequency sweeps require computation mode (a source)")
     if pml is not None and _is_spatial(mesh):
         raise ValueError("PML sweeps do not compose with spatial ('b','z') meshes yet")
-    if pml is not None and backend != "xla":
-        raise ValueError(
-            f"PML sweeps run the xla path (got backend={backend!r})"
-        )
     freqs = np.asarray(frequencies, dtype=np.float64)
     ts = time_values(p)
     if n_steps is not None:
@@ -260,7 +254,7 @@ def frequency_sweep(
 
         pml_step = make_pml_step(p, pml, update_coefs(p, None))
     else:
-        step = make_step(p, backend=backend)
+        step = make_step(p)
 
     if _is_spatial(mesh):
         # scan-of-vmap with ("b", "z") constraints: members shard over "b",

@@ -23,8 +23,8 @@ in flux form with *harmonic-mean* face conductivities (the physically
 correct choice across material discontinuities: it makes the steady
 two-slab interface flux exact) and insulated (zero-flux Neumann) walls.
 The step is a 7-point stencil `lax.scan` — bandwidth-bound streaming
-arithmetic, the same shape XLA already fuses optimally on TPU; no
-custom kernel is warranted at thermal step counts (~1e4-1e5 steps of
+arithmetic, the same shape XLA fuses well; no custom kernel is
+warranted at thermal step counts (~1e4-1e5 steps of
 ~0.5 GB traffic at 256^3, milliseconds each).
 
 The stable step is computed per cell (variable coefficients):

@@ -5,7 +5,7 @@
 // field buffers are fwrite()n straight from the caller's memory.  Called
 // from Python via ctypes on a background thread (ctypes FFI calls release
 // the GIL, so encoding/IO overlaps the simulation step loop) — the
-// TPU-native counterpart of the reference's Silo writer (reference:
+// counterpart of the reference's Silo writer (reference:
 // main.c:550-598), minus the serial rank-0 gather bottleneck
 // (description.pdf section 5).
 //

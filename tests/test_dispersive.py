@@ -331,125 +331,6 @@ def test_dispersive_sharded_monitors_and_checkpoint(tmp_path):
         )
 
 
-def test_dispersive_fused_tier_parity():
-    """The two-pass ADE Pallas tier (r4): fields and the TRUE-Debye-work
-    SAR accumulator match the xla ADE scan at the fp32 ulp level (the
-    three-product update expression gives XLA FMA-contraction freedom,
-    so exact bit-equality is not guaranteed across program shapes)."""
-    p = _box(10, 1e-12, 24)
-    dm = water_debye_load(p, sigma_ion25=0.5)
-    want = run_simulation(p, materials=dm, write_snapshots=False,
-                          backend="xla", accumulate_power=True,
-                          log=lambda s: None)
-    got = run_simulation(p, materials=dm, write_snapshots=False,
-                         backend="pallas_fused", accumulate_power=True,
-                         log=lambda s: None)
-    for c in ("ex", "ey", "ez", "hx", "hy", "hz"):
-        np.testing.assert_allclose(
-            np.asarray(getattr(got.state, c)),
-            np.asarray(getattr(want.state, c)),
-            rtol=0, atol=5e-7,
-        )
-    np.testing.assert_allclose(np.asarray(got.power_j),
-                               np.asarray(want.power_j),
-                               rtol=3e-6, atol=1e-18)
-
-
-def test_dispersive_stream_tier_parity():
-    """The streaming ADE tier (r4): s=4 steps/sweep with P in the skewed
-    pipeline and in-kernel TRUE-Debye-work accumulation — ulp-level
-    parity vs the xla ADE scan, including an odd trailing step through
-    the two-pass tier."""
-    from fdtd_tpu.ops.pallas_dispersive import pick_ade_plan
-
-    p = _box(10, 1e-12, 22)  # 5 sweeps of 4 + 2 odd steps
-    assert pick_ade_plan(p, sar=True) == (4, 1)
-    dm = water_debye_load(p, sigma_ion25=0.5)
-    want = run_simulation(p, materials=dm, write_snapshots=False,
-                          backend="xla", accumulate_power=True,
-                          log=lambda s: None)
-    got = run_simulation(p, materials=dm, write_snapshots=False,
-                         backend="pallas_stream", accumulate_power=True,
-                         log=lambda s: None)
-    for c in ("ex", "ey", "ez", "hx", "hy", "hz"):
-        np.testing.assert_allclose(
-            np.asarray(getattr(got.state, c)),
-            np.asarray(getattr(want.state, c)),
-            rtol=0, atol=5e-7,
-        )
-    assert float(np.abs(np.asarray(want.power_j)).max()) > 0
-    np.testing.assert_allclose(np.asarray(got.power_j),
-                               np.asarray(want.power_j),
-                               rtol=3e-6, atol=1e-18)
-
-
-def test_dispersive_stream_checkpoint_and_snapshots(tmp_path):
-    """Streaming-tier dispersive runs checkpoint/resume and produce the
-    same snapshot cadence as the xla tier (chunk boundaries restore the
-    canonical layout)."""
-    import glob
-    import os
-
-    p = _box(8, 1e-12, 16)
-    dm = water_debye_load(p)
-    out = str(tmp_path / "ck")
-    full = run_simulation(p, materials=dm, write_snapshots=False,
-                          backend="xla", log=lambda s: None)
-    run_simulation(p, materials=dm, out_dir=out, write_snapshots=False,
-                   checkpoint_every=8, backend="pallas_stream",
-                   log=lambda s: None)
-    for f in glob.glob(out + "/ckpt*.npz"):
-        if int(os.path.basename(f)[4:-4]) > 8:
-            os.remove(f)
-    resumed = run_simulation(p, materials=dm, out_dir=out,
-                             write_snapshots=False, resume=True,
-                             backend="pallas_stream", log=lambda s: None)
-    for c in ("ex", "ey", "ez", "hx", "hy", "hz"):
-        np.testing.assert_allclose(
-            np.asarray(getattr(resumed.state, c)),
-            np.asarray(getattr(full.state, c)),
-            rtol=0, atol=5e-7,
-        )
-
-
-def test_dispersive_fused_checkpoint_interop(tmp_path):
-    """A fast-tier dispersive checkpoint (AdeState P extracted to the
-    canonical pol_* layout) resumes on the xla tier and vice versa."""
-    import glob
-    import os
-
-    p = _box(8, 1e-12, 16)
-    dm = water_debye_load(p)
-    out = str(tmp_path / "ck")
-    full = run_simulation(p, materials=dm, write_snapshots=False,
-                          backend="xla", log=lambda s: None)
-    run_simulation(p, materials=dm, out_dir=out, write_snapshots=False,
-                   checkpoint_every=8, backend="pallas_fused",
-                   log=lambda s: None)
-    for f in glob.glob(out + "/ckpt*.npz"):
-        if int(os.path.basename(f)[4:-4]) > 8:
-            os.remove(f)
-    resumed = run_simulation(p, materials=dm, out_dir=out,
-                             write_snapshots=False, resume=True,
-                             backend="xla", log=lambda s: None)
-    for c in ("ex", "ey", "ez", "hx", "hy", "hz"):
-        np.testing.assert_allclose(
-            np.asarray(getattr(resumed.state, c)),
-            np.asarray(getattr(full.state, c)),
-            rtol=0, atol=5e-7,
-        )
-
-
-def test_dispersive_fused_gates():
-    """Validation mode / fp64 keep the xla ADE scan with a notice."""
-    notices = []
-    p = _box(8, 1e-12, 8, mode=Mode.VALIDATION)
-    dm = _uniform_debye(p)
-    run_simulation(p, materials=dm, write_snapshots=False,
-                   backend="pallas_fused", log=notices.append)
-    assert any("xla ADE scan" in s for s in notices)
-
-
 def test_dispersive_sar_energy_balance():
     """The discrete energy books close: in a source-free ring-down
     through a uniform Debye medium, the field energy lost equals the
@@ -535,8 +416,6 @@ def test_dispersive_pml_inert_until_wave_arrives():
     zero and the ADE+CPML run is BIT-equal to the closed-cavity ADE run
     (the correction is exactly inert outside the slabs; the k2*dE P fix
     adds exact zeros)."""
-    import dataclasses as _dc
-
     import jax.numpy as jnp
 
     from fdtd_tpu.ops.cpml import PMLConfig, init_psi
@@ -545,7 +424,6 @@ def test_dispersive_pml_inert_until_wave_arrives():
         make_dispersive_pml_chunk_runner,
         zero_polarization,
     )
-    from fdtd_tpu.state import zeros
     from fdtd_tpu.step import scan_inputs
     from fdtd_tpu.params import time_values
     from tests.test_pml import _solenoidal_pulse
@@ -585,7 +463,6 @@ def test_dispersive_pml_ring_down_bounded_by_each_mechanism():
         make_dispersive_pml_chunk_runner,
         zero_polarization,
     )
-    from fdtd_tpu.state import zeros
     from fdtd_tpu.step import scan_inputs
     from fdtd_tpu.params import time_values
     from tests.test_pml import _solenoidal_pulse
@@ -676,145 +553,3 @@ def test_dispersive_pml_runner_monitors_sar_and_checkpoint(tmp_path):
             np.asarray(getattr(ra.state, c)),
             np.asarray(getattr(rb.state, c)), err_msg=c,
         )
-
-
-@pytest.mark.parametrize("sar", [False, True])
-def test_dispersive_stream_dft_matches_xla(sar):
-    """In-kernel DFT x dispersive streaming (r5, VERDICT r4 #6): the
-    steady-state phasor INSIDE a Debye load rides the streaming ADE
-    sweep — the phasor bands and the ADE pipeline share the
-    rolling-band mechanism — matching the xla ADE scan's per-step
-    accumulation at the fp32 ulp level, including two frequencies, the
-    TRUE-Debye SAR band, and odd trailing steps through the two-pass
-    ADE tier."""
-    from fdtd_tpu.dft import DftConfig
-    from fdtd_tpu.ops.pallas_dispersive import (
-        dispersive_stream_dft_supported,
-        pick_ade_plan,
-    )
-
-    p = _box(12, 1e-12, 22)  # 5 sweeps of 4 + 2 odd steps
-    dm = water_debye_load(p, lo=(0.25,) * 3, hi=(0.75,) * 3,
-                          sigma_ion25=0.2)
-    dftc = DftConfig((p.source.frequency, 1.5e10))
-    assert pick_ade_plan(p, sar=sar, dft_nf=dftc.nf) == (4, 1)
-    assert dispersive_stream_dft_supported(p, dftc, sar=sar)
-    want = run_simulation(p, materials=dm, write_snapshots=False,
-                          backend="xla", dft=dftc, accumulate_power=sar,
-                          log=lambda s: None)
-    got = run_simulation(p, materials=dm, write_snapshots=False,
-                         backend="pallas_stream", dft=dftc,
-                         accumulate_power=sar, log=lambda s: None)
-    scale = np.abs(want.dft.phasors).max()
-    np.testing.assert_allclose(got.dft.phasors, want.dft.phasors,
-                               rtol=0, atol=2e-6 * scale)
-    for c in ("ex", "ey", "ez", "hx", "hy", "hz"):
-        np.testing.assert_allclose(
-            np.asarray(getattr(got.state, c)),
-            np.asarray(getattr(want.state, c)),
-            rtol=0, atol=5e-7, err_msg=c,
-        )
-    if sar:
-        assert float(np.abs(np.asarray(want.power_j)).max()) > 0
-        np.testing.assert_allclose(np.asarray(got.power_j),
-                                   np.asarray(want.power_j),
-                                   rtol=3e-6, atol=1e-18)
-
-
-def test_dispersive_stream_dft_gating_probes_and_eh_keep_xla():
-    """Probes and fields='eh' inside a Debye load genuinely need
-    per-step states: the runner keeps the xla ADE scan with a notice."""
-    from fdtd_tpu.dft import DftConfig
-
-    p = _box(10, 1e-12, 12)
-    dm = water_debye_load(p, sigma_ion25=0.2)
-    notices = []
-    res = run_simulation(p, materials=dm, write_snapshots=False,
-                         backend="pallas_stream",
-                         dft=DftConfig((p.source.frequency,)),
-                         probes=ProbeSet(((4, 4, 4),)),
-                         log=notices.append)
-    assert res.probes is not None
-    assert any("xla ADE scan" in s for s in notices)
-    notices2 = []
-    run_simulation(p, materials=dm, write_snapshots=False,
-                   backend="pallas_stream",
-                   dft=DftConfig((p.source.frequency,), fields="eh"),
-                   log=notices2.append)
-    assert any("xla ADE scan" in s for s in notices2)
-
-
-def test_dispersive_stream_dft_checkpoint_resume(tmp_path):
-    """DFT + polarization accumulators ride checkpoints on the
-    dispersive streaming DFT tier: an interrupted run resumes — on the
-    xla ADE scan (cross-tier interop) — to the uninterrupted phasors."""
-    import dataclasses as _dc
-
-    from fdtd_tpu.dft import DftConfig
-
-    p = _box(12, 1e-12, 20)
-    dm = water_debye_load(p, sigma_ion25=0.2)
-    dftc = DftConfig((p.source.frequency,))
-    full = run_simulation(p, materials=dm, write_snapshots=False,
-                          backend="pallas_stream", dft=dftc,
-                          log=lambda s: None)
-    p_half = _dc.replace(p, simulation_time=9.5e-12)
-    run_simulation(p_half, materials=dm, out_dir=str(tmp_path),
-                   write_snapshots=False, backend="pallas_stream",
-                   dft=dftc, checkpoint_every=10, log=lambda s: None)
-    res = run_simulation(p, materials=dm, out_dir=str(tmp_path),
-                         write_snapshots=False, backend="xla", dft=dftc,
-                         resume=True, log=lambda s: None)
-    scale = np.abs(full.dft.phasors).max()
-    np.testing.assert_allclose(res.dft.phasors, full.dft.phasors,
-                               rtol=0, atol=2e-6 * scale)
-
-
-def test_dispersive_stream_jtiled_matches_xla(monkeypatch):
-    """The 9-band j-tiled in-place streaming ADE (r5, VERDICT r4 #5):
-    fields AND polarization alias in place across j-tiles, their
-    pre-sweep lower halos riding nine pre-copied band operands — parity
-    vs the xla ADE scan at the fp32 ulp level through the REAL chunk
-    runner (jextend/jrestore round trip + odd trailing steps), with the
-    TRUE-Debye SAR accumulator matching to ulp.  This is the tier that
-    lets 512^3-class bf16 dispersive grids stream (pick_ade_plan now
-    admits (4, 8) there) instead of silently falling to two-pass."""
-    from fdtd_tpu.ops.dispersive import (
-        make_dispersive_chunk_runner,
-        zero_polarization,
-    )
-    from fdtd_tpu.ops.pallas_dispersive import (
-        make_ade_state,
-        make_dispersive_stream_chunk_runner,
-    )
-    from fdtd_tpu.step import backend_adapters, scan_inputs, zero_power_acc
-    from fdtd_tpu.params import time_values
-
-    monkeypatch.setenv("FDTD_ADE_NJ", "2")
-    n, steps = 48, 22  # 5 sweeps of 4 + 2 odd steps, wave reaches load
-    p = _box(n, 1e-12, steps)
-    dm = water_debye_load(p, lo=(0.1,) * 3, hi=(0.9,) * 3, sigma_ion25=0.3)
-    run_x = make_dispersive_chunk_runner(p, dm, accumulate_power=True)
-    xs = scan_inputs(p, time_values(p)[:steps])
-    from fdtd_tpu.state import zeros
-
-    (want_st, want_P), want_acc, *_ = run_x(
-        (zeros(p), zero_polarization(p)), xs, zero_power_acc(p), None)
-    run_s = make_dispersive_stream_chunk_runner(
-        p, dm, accumulate_power=True, interpret=True)
-    prep, rest = backend_adapters(p, "pallas_fused")
-    (st, ade), acc = run_s((prep(zeros(p)), make_ade_state(p, dm, True)),
-                           xs, zero_power_acc(p))
-    got = rest(st)
-    for c in ("ex", "ey", "ez", "hx", "hy", "hz"):
-        g = np.asarray(getattr(got, c))[:, :, : p.maxi]
-        w = np.asarray(getattr(want_st, c))[:, :, : p.maxi]
-        np.testing.assert_allclose(g, w, rtol=0, atol=5e-7, err_msg=c)
-    from fdtd_tpu.ops.pallas_dispersive import extract_pol
-
-    for a, b, nm in zip(extract_pol(p, ade), want_P, "xyz"):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=0, atol=1e-18, err_msg="P" + nm)
-    aw = np.asarray(want_acc)
-    assert float(aw.max()) > 0
-    np.testing.assert_allclose(np.asarray(acc), aw, rtol=3e-6, atol=1e-22)

@@ -146,23 +146,6 @@ def test_sar_resume_preserves_power(tiny_params, tmp_path):
     assert float(np.asarray(ra.power_j).max()) > 0
 
 
-def test_resume_equivalence_fast_backend(tiny_params, tmp_path):
-    """Checkpoint/resume through the stripped-layout backend round-trips."""
-    p = dataclasses.replace(tiny_params, dtype="float32", sampling_rate=7)
-    ra = run_simulation(p, out_dir=str(tmp_path / "fa"), write_snapshots=False,
-                        checkpoint_every=7, backend="pallas_fused")
-    for f in glob.glob(str(tmp_path / "fb") + "/ckpt*.npz"):
-        os.remove(f)
-    run_simulation(p, out_dir=str(tmp_path / "fb"), write_snapshots=False,
-                   checkpoint_every=7, backend="pallas_fused")
-    for f in glob.glob(str(tmp_path / "fb") + "/ckpt*.npz"):
-        if int(os.path.basename(f)[4:-4]) > 7:
-            os.remove(f)
-    rb = run_simulation(p, out_dir=str(tmp_path / "fb"), write_snapshots=False,
-                        resume=True, backend="pallas_fused")
-    np.testing.assert_array_equal(np.asarray(ra.state.ey), np.asarray(rb.state.ey))
-
-
 def test_pvd_series_index(tiny_params, tmp_path):
     p = dataclasses.replace(tiny_params, sampling_rate=10)
     out = str(tmp_path / "rp")

@@ -5,7 +5,6 @@ import dataclasses
 
 import jax
 import numpy as np
-import pytest
 
 from fdtd_tpu import diagnostics
 from fdtd_tpu.params import Mode, time_values
@@ -121,48 +120,6 @@ def test_higher_mu_slows_wave(tiny_params):
     assert np.isfinite(np.asarray(s_m.hx)).all()
 
 
-def test_power_deposition_stripped_matches_canonical(tiny_params):
-    """The stripped-layout SAR read is bit-identical to the canonical one."""
-    from fdtd_tpu import diagnostics
-    from fdtd_tpu.ops.pallas_fused import to_stripped
-    from fdtd_tpu.state import update_coefs, water_block
-
-    p = dataclasses.replace(tiny_params, dtype="float32", mode=Mode.COMPUTATION)
-    mats = water_block(p, lo=(0.0, 0.0, 0.0), hi=(1.0, 1.0, 1.0), sigma=1.3)
-    coefs = update_coefs(p, mats)
-    # evolve a few steps so fields are nontrivial
-    s = zeros(p)
-    step = jax.jit(make_step(p, materials=mats))
-    xs = scan_inputs(p, time_values(p)[:6])
-    for t, a in zip(*xs):
-        s = step(s, (t, a))
-    want = np.asarray(diagnostics.power_deposition(p, s, coefs.sigma_cells))
-    st = to_stripped(p, s)
-    got = np.asarray(diagnostics.power_deposition_stripped(p, st, coefs.sigma_cells))
-    np.testing.assert_array_equal(got, want)
-
-
-def test_sar_fast_backend_matches_xla(tiny_params):
-    """--sar on pallas_fused (no per-step restore) == --sar on xla."""
-    from fdtd_tpu.step import backend_adapters, zero_power_acc
-
-    p = dataclasses.replace(tiny_params, dtype="float32", mode=Mode.COMPUTATION)
-    mats = water_block(p, lo=(0.2, 0.2, 0.2), hi=(0.8, 0.8, 0.8))
-    xs = scan_inputs(p, time_values(p)[:10])
-
-    run_x = make_chunk_runner(p, materials=mats, accumulate_power=True)
-    _, acc_x = run_x(zeros(p), xs, zero_power_acc(p))
-
-    prep, _ = backend_adapters(p, "pallas_fused", mats)
-    run_f = make_chunk_runner(p, materials=mats, backend="pallas_fused",
-                              accumulate_power=True)
-    _, acc_f = run_f(prep(zeros(p)), xs, zero_power_acc(p))
-    np.testing.assert_allclose(
-        np.asarray(acc_f), np.asarray(acc_x), atol=1e-12, rtol=1e-5
-    )
-    assert float(np.asarray(acc_f).max()) > 0
-
-
 def _ferrite_water_scene(p):
     """Heterogeneous eps, sigma AND mu: a water block plus a ferrite slab."""
     import numpy as np
@@ -177,121 +134,6 @@ def _ferrite_water_scene(p):
     sg[2 : K - 2, 2 : J - 2, 2 : I - 2] = 0.8
     mu[K // 2 :, : J // 2, :] = 4.0  # ferrite slab
     return Materials(eps_r=er, sigma=sg, mu_r=mu)
-
-
-def test_het_mu_fast_backend_matches_xla(tiny_params):
-    """Heterogeneous mu_r on the two-pass fast path (VERDICT r2 next #4):
-    per-component face-averaged H factors streamed in the H pass match the
-    xla ground truth."""
-    import dataclasses
-
-    import jax
-
-    from fdtd_tpu.params import Mode, time_values
-    from fdtd_tpu.step import backend_adapters, make_chunk_runner, scan_inputs
-    from fdtd_tpu.state import zeros
-
-    p = dataclasses.replace(tiny_params, dtype="float32", mode=Mode.COMPUTATION)
-    mats = _ferrite_water_scene(p)
-    xs = scan_inputs(p, time_values(p)[:9])
-    run_x = make_chunk_runner(p, mats, backend="xla")
-    want, _ = run_x(zeros(p), xs, None)
-    run_f = make_chunk_runner(p, mats, backend="pallas_fused")
-    prep, rest = backend_adapters(p, "pallas_fused", mats)
-    got = rest(run_f(prep(zeros(p)), xs, None)[0])
-    for c in ["ex", "ey", "ez", "hx", "hy", "hz"]:
-        np.testing.assert_allclose(
-            np.asarray(getattr(got, c)), np.asarray(getattr(want, c)),
-            atol=2e-7, rtol=0, err_msg=c,
-        )
-
-
-@pytest.mark.parametrize("nj", [None, 2])
-def test_het_mu_stream_backend_matches_xla(tiny_params, nj, monkeypatch):
-    """Heterogeneous mu_r on the streaming wavefront (r3): hf_x/y/z ride
-    three extra coefficient windows, every level's H rows sliced per
-    level; the strip column uses hfx_s.  nj=2 forces the j-tiled plan."""
-    import dataclasses
-
-    import jax
-
-    from fdtd_tpu.params import Mode, time_values
-    from fdtd_tpu.step import backend_adapters, make_chunk_runner, scan_inputs
-    from fdtd_tpu.state import zeros
-
-    if nj is not None:
-        monkeypatch.setenv("FDTD_STREAM_NJ", str(nj))
-    p = dataclasses.replace(tiny_params, dtype="float32", mode=Mode.COMPUTATION)
-    mats = _ferrite_water_scene(p)
-    xs = scan_inputs(p, time_values(p)[:19])  # 2 sweeps + 3 odd steps
-    run_x = make_chunk_runner(p, mats, backend="xla")
-    want, _ = run_x(zeros(p), xs, None)
-    run_s = make_chunk_runner(p, mats, backend="pallas_stream")
-    prep, rest = backend_adapters(p, "pallas_stream", mats)
-    got = rest(run_s(prep(zeros(p)), xs, None)[0])
-    for c in ["ex", "ey", "ez", "hx", "hy", "hz"]:
-        np.testing.assert_allclose(
-            np.asarray(getattr(got, c)), np.asarray(getattr(want, c)),
-            atol=2e-7, rtol=0, err_msg=c,
-        )
-
-
-def test_het_mu_sharded_stream_matches_single(tiny_params):
-    """Heterogeneous mu_r on the sharded streaming composition: hf slabs
-    baked with neighbor halo rows advance halo H rows exactly."""
-    import dataclasses
-
-    import jax
-
-    from fdtd_tpu.params import Mode, time_values
-    from fdtd_tpu.parallel.mesh import make_mesh
-    from fdtd_tpu.parallel.sharded_fast import (from_sharded_fast,
-                                                make_sharded_stream_runner,
-                                                to_sharded_fast)
-    from fdtd_tpu.state import update_coefs, zeros
-    from fdtd_tpu.step import make_chunk_runner, scan_inputs
-
-    p = dataclasses.replace(tiny_params, dtype="float32", mode=Mode.COMPUTATION)
-    mats = _ferrite_water_scene(p)
-    coefs = update_coefs(p, mats)
-    xs = scan_inputs(p, time_values(p)[:19])
-    run_x = make_chunk_runner(p, mats, backend="xla")
-    want, _ = run_x(zeros(p), xs, None)
-
-    mesh = make_mesh(2, (2, 1, 1), devices=jax.devices("cpu"))
-    st = to_sharded_fast(p, zeros(p), mesh, coefs=coefs)
-    run = make_sharded_stream_runner(p, mesh, interpret=True, materials=mats)
-    st = run(st, xs)
-    got = from_sharded_fast(p, st, mesh)
-    for c in ["ex", "ey", "ez", "hx", "hy", "hz"]:
-        g = np.asarray(getattr(got, c))[:, :, : p.maxi]
-        w = np.asarray(getattr(want, c))[:, :, : p.maxi]
-        np.testing.assert_allclose(g, w, atol=1e-6, rtol=0, err_msg=c)
-
-
-def test_het_mu_sharded_fast_matches_single(tiny_params, tmp_path):
-    """Heterogeneous mu_r through run_simulation --shard (1-D and 2x2):
-    the sharded fast path carries the hf slabs per shard."""
-    import dataclasses
-
-    from fdtd_tpu.io.vtr import read_vtr_cell_arrays
-    from fdtd_tpu.params import Mode
-    from fdtd_tpu.runner import run_simulation
-
-    p = dataclasses.replace(tiny_params, dtype="float32",
-                            mode=Mode.COMPUTATION, sampling_rate=10)
-    mats = _ferrite_water_scene(p)
-    run_simulation(p, out_dir=str(tmp_path / "one"), materials=mats,
-                   backend="pallas_fused", log=lambda s: None)
-    for spec, sub in [("4", "z4"), ("2x2", "zy")]:
-        notices = []
-        run_simulation(p, out_dir=str(tmp_path / sub), materials=mats,
-                       shard=spec, backend="pallas_fused", log=notices.append)
-        assert not any("mu_r" in m for m in notices), notices
-        a = read_vtr_cell_arrays(str(tmp_path / "one" / "result0020.vtr"))
-        b = read_vtr_cell_arrays(str(tmp_path / sub / "result0020.vtr"))
-        for k in ["ex", "ey", "ez", "hx", "hy", "hz"]:
-            np.testing.assert_array_equal(a[k], b[k], err_msg=f"{spec}/{k}")
 
 
 def test_load_shape_masks_geometry():

@@ -14,7 +14,7 @@ import pytest
 from fdtd_tpu.params import Mode, time_values
 from fdtd_tpu.parallel.gspmd import make_gspmd_chunk_runner
 from fdtd_tpu.parallel.mesh import factor3, make_mesh, pad_state_for_mesh, unpad_state
-from fdtd_tpu.parallel.sharded_step import make_sharded_chunk_runner
+from fdtd_tpu.parallel.sharded_step import make_sharded_monitored_chunk_runner
 from fdtd_tpu.state import init_validation, zeros
 from fdtd_tpu.step import make_chunk_runner, scan_inputs
 
@@ -55,9 +55,9 @@ def test_shard_map_matches_single_device(tiny_params, mesh_shape, mode):
     mesh = make_mesh(8, mesh_shape, devices=jax.devices("cpu"))
     s0 = init_validation(p) if mode == Mode.VALIDATION else zeros(p)
     s0 = pad_state_for_mesh(p, s0, mesh)
-    run = make_sharded_chunk_runner(p, mesh)
-    _, amps = scan_inputs(p, time_values(p)[:n_steps])
-    got = run(s0, amps)
+    run = make_sharded_monitored_chunk_runner(p, mesh)
+    xs = scan_inputs(p, time_values(p)[:n_steps])
+    got, _, _, _ = run(s0, xs, None, None)
     _compare(p, got, want)
 
 
@@ -134,8 +134,8 @@ def test_sharded_step_lossy_matches_single_device(tiny_params, shape):
 
     mesh = make_mesh(8, shape, devices=jax.devices("cpu"))
     sp = pad_state_for_mesh(p, s0, mesh)
-    run = make_sharded_chunk_runner(p, mesh, materials=mats)
-    got = run(sp, xs[1])
+    run = make_sharded_monitored_chunk_runner(p, mesh, materials=mats)
+    got, _, _, _ = run(sp, xs, None, None)
     _compare(p, got, want)
 
 
@@ -159,8 +159,8 @@ def test_sharded_step_mu_matches_single_device(tiny_params):
 
     mesh = make_mesh(8, (2, 2, 2), devices=jax.devices("cpu"))
     sp = pad_state_for_mesh(p, s0, mesh)
-    run = make_sharded_chunk_runner(p, mesh, materials=mats)
-    got = run(sp, xs[1])
+    run = make_sharded_monitored_chunk_runner(p, mesh, materials=mats)
+    got, _, _, _ = run(sp, xs, None, None)
     _compare(p, got, want)
 
 
@@ -191,9 +191,9 @@ def test_sharded_xla_sar_matches_single_chip(tiny_params):
         field_sharding(mesh),
     )
     sp = pad_state_for_mesh(p, s0, mesh)
-    run = make_sharded_chunk_runner(p, mesh, materials=mats,
-                                    accumulate_power=True)
-    got, acc = run(sp, xs[1], acc0)
+    run = make_sharded_monitored_chunk_runner(p, mesh, materials=mats,
+                                              accumulate_power=True)
+    got, acc, _, _ = run(sp, xs, acc0, None)
     _compare(p, got, want)
     np.testing.assert_allclose(np.asarray(acc[:K, :J, :I]),
                                np.asarray(pw_want), atol=1e-30, rtol=1e-9)

@@ -4,6 +4,7 @@ import dataclasses
 
 import jax
 import numpy as np
+import pytest
 
 from fdtd_tpu.params import Mode, time_values
 from fdtd_tpu.state import init_validation, zeros
@@ -89,3 +90,47 @@ def test_pec_boundary_invariant(tiny_params):
     ey0 = np.asarray(init_validation(p).ey)
     assert np.allclose(ey[:, :, 0], ey0[:, :, 0]) and np.allclose(ey[:, :, I], ey0[:, :, I])
     assert np.allclose(ey[0], ey0[0]) and np.allclose(ey[K], ey0[K])
+
+
+def _cube(n, mode, dtype):
+    from fdtd_tpu.params import Params
+
+    dx = 0.001
+    return Params(
+        length=n * dx, width=n * dx, height=n * dx, spatial_step=dx,
+        time_step=1e-12, simulation_time=20e-12, sampling_rate=10**9,
+        mode=Mode(mode), dtype=dtype,
+    )
+
+
+# fp32 holds the north-star 1e-5 bar against the fp64 oracle.  bf16 stores
+# 8 mantissa bits (one ulp is 3.9e-3 relative) and rounds every step.
+_ORACLE_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", [0, 1])
+@pytest.mark.parametrize("n", [12, 13, 16])
+def test_jnp_step_matches_oracle(n, mode, dtype):
+    """The jitted jnp step (the one path every run takes) against the
+    triple-loop fp64 oracle, on even and odd grids, both modes, both
+    storage dtypes."""
+    p = _cube(n, mode, dtype)
+    state = init_validation(p) if mode == 0 else zeros(p)
+    oracle = OracleSim(p)
+    if mode == 0:
+        oracle.set_initial_te101()
+    step = jax.jit(make_step(p))
+    ts, amps = scan_inputs(p, time_values(p)[:8])
+    for t, a in zip(ts, amps):
+        state = step(state, (t, a))
+        oracle.step(t, computation=mode == 1)
+    assert state.ex.dtype == np.dtype(dtype)
+    num = den = 0.0
+    for c in COMPONENTS:
+        got = np.asarray(getattr(state, c), np.float64)
+        want = getattr(oracle, c)
+        num += float(((got - want) ** 2).sum())
+        den += float((want**2).sum())
+    assert den > 0
+    assert (num / den) ** 0.5 < _ORACLE_TOL[dtype]

@@ -174,8 +174,6 @@ def test_frequency_sweep_pml_matches_individual_run(tiny_params):
             np.asarray(getattr(res.states, c))[1],
             np.asarray(getattr(want, c)), atol=1e-7, rtol=1e-5, err_msg=c,
         )
-    with pytest.raises(ValueError, match="xla"):
-        frequency_sweep(p, freqs, n_steps=4, pml=cfg, backend="pallas_fused")
 
 
 def test_material_sweep_pml_matches_individual_run(tiny_params):

@@ -112,3 +112,28 @@ def test_drive_values_match_libm():
     want = [math.sin(2.0 * math.pi * plan.frequency * float(t)) for t in ts]
     # np.sin and math.sin agree to <=1 ulp on these arguments
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-15)
+
+
+def test_field_times_minimize_e_r():
+    """After 250 steps on the 0.25 m box (dt = 1e-12 s), each component's
+    e_r is smallest at its own time (analytic.field_times) over offsets
+    from the time counter on a dt/2 lattice, and own_time_error reads
+    those minima."""
+    from fdtd_tpu.params import Mode, Params
+
+    n, steps, dt = 40, 250, 1e-12
+    p = Params(length=0.25, width=0.25, height=0.25, spatial_step=0.25 / n,
+               time_step=dt, simulation_time=(steps - 0.5) * dt,
+               sampling_rate=10**9, mode=Mode.VALIDATION, dtype="float64")
+    ts = time_values(p)
+    state, _ = make_chunk_runner(p)(init_validation(p), scan_inputs(p, ts), None)
+    t = float(ts[-1])
+    offsets = [0.0, 0.5, 1.0, 1.5, 2.0]
+    own = analytic.own_time_error(p, state, t)
+    for name, t_own in analytic.field_times(p, t).items():
+        errs = [analytic.relative_l2_error(p, state, t + o * dt)[name]
+                for o in offsets]
+        best = offsets[int(np.argmin(errs))]
+        assert abs(t + best * dt - t_own) < 1e-3 * dt, (name, errs)
+        assert own[name] == min(errs)
+    assert own["ey"] < 0.2 * analytic.relative_l2_error(p, state, t)["ey"]
